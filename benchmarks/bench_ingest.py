@@ -50,8 +50,8 @@ def drain(src, chunk_reads=65536):
 
 def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from kmer_counter_tpu.io import native
-    from kmer_counter_tpu.io.fastq import DirectoryInput, ParallelIngest
+    from kmer_counter.io import native
+    from kmer_counter.io.fastq import DirectoryInput, ParallelIngest
 
     n_files = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     reads_per_file = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000

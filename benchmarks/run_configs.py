@@ -8,8 +8,7 @@ JSON line per config.
 Usage:
     python benchmarks/run_configs.py [--configs 1,2,3] [--scale N]
 
-Runs on whatever devices are visible: the real TPU chip under the driver,
-or a CPU (optionally with XLA_FLAGS=--xla_force_host_platform_device_count=8
+Runs on whatever devices are visible: a GPU, or a CPU (optionally with XLA_FLAGS=--xla_force_host_platform_device_count=8
 to exercise config 5's mesh path on virtual devices).
 """
 
@@ -26,7 +25,7 @@ import numpy as np
 
 
 def make_fixture(dirpath, rng, n_reads, L, n_files=1, genome_len=100_000, invalid=0.0):
-    from kmer_counter_tpu.utils.seqgen import make_fastq_dir
+    from kmer_counter.utils.seqgen import make_fastq_dir
 
     os.makedirs(dirpath, exist_ok=True)
     return make_fastq_dir(
@@ -35,7 +34,7 @@ def make_fixture(dirpath, rng, n_reads, L, n_files=1, genome_len=100_000, invali
 
 
 def golden_table(dirpath, k, canonical):
-    from kmer_counter_tpu import golden
+    from kmer_counter import golden
 
     counter = {}
     for name in sorted(os.listdir(dirpath)):
@@ -47,9 +46,9 @@ def golden_table(dirpath, k, canonical):
 
 
 def run_config(num, scale, verify=True):
-    from kmer_counter_tpu.config import Options
-    from kmer_counter_tpu.engine import run_count
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.config import Options
+    from kmer_counter.engine import run_count
+    from kmer_counter.io.dump import load_table
 
     rng = np.random.default_rng(num)
     tmp = tempfile.mkdtemp(prefix=f"kc_config{num}_")
@@ -113,6 +112,9 @@ def main():
     ap.add_argument("--scale", type=int, default=1)
     ap.add_argument("--no-verify", action="store_true")
     args = ap.parse_args()
+    from kmer_counter.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     failures = 0
     for num in [int(c) for c in args.configs.split(",")]:
         result = run_config(num, args.scale, verify=not args.no_verify)

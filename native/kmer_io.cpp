@@ -1,15 +1,15 @@
-// kmer_io — native host runtime for the TPU k-mer counting engine.
+// kmer_io — native host runtime for the k-mer counting engine.
 //
 // C++ replacements for the hot host-side paths, exposed through a plain C
-// ABI consumed via ctypes (kmer_counter_tpu/io/native.py):
+// ABI consumed via ctypes (kmer_counter/io/native.py):
 //
 //   * FASTQ chunk reader: streams a FASTQ file and fills dense row-major
 //     [max_reads, line_length] uint8 matrices — the native twin of
-//     kmer_counter_tpu.io.fastq.FASTQReader (itself the re-design of the
+//     kmer_counter.io.fastq.FASTQReader (itself the re-design of the
 //     reference's FASTQFileReader.cpp:49-89 getline loop).  Strict 4-line
 //     parsing; CR stripped; short rows zero-padded.
 //   * K-way merge of sorted record runs: the native twin of
-//     kmer_counter_tpu.io.spill.merge_runs (reference:
+//     kmer_counter.io.spill.merge_runs (reference:
 //     KMerFileMerger.cpp:49-135 + SortedKMerFile.cpp:29-82), using a
 //     loser-tree-ish binary heap instead of the reference's linear scan.
 //
@@ -78,7 +78,7 @@ bool next_line(FastqReader* r, size_t* start, size_t* end) {
 // Absolute offset of the first record header at/after `start`, or -1 when
 // none exists.  A record header is a line starting with '@' whose line+2
 // starts with '+' (rejecting '@'-leading quality lines) — the same resync
-// rule as kmer_counter_tpu.io.fastq.FASTQReader._seek_to_record, so the
+// rule as kmer_counter.io.fastq.FASTQReader._seek_to_record, so the
 // native and Python parsers shard a file identically.
 long long find_record_start(FILE* f, long long start) {
   if (start <= 0) return 0;

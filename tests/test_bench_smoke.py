@@ -1,10 +1,9 @@
 """bench.py end-to-end smoke test on CPU.
 
-The driver runs bench.py unattended on the real chip at end of round; a
-script-level regression (import error, phase logic, JSON shape) would
-silently cost the round's recorded number (round 2 was lost to exactly
-one unguarded failure mode).  This runs the whole script at toy sizes on
-the CPU backend and validates the output contract.
+A script-level regression (import error, phase logic, JSON shape) would
+only show on the card.  This runs the whole script at toy sizes on the CPU
+backend (JAX_PLATFORMS=cpu makes the non-GPU device allowed) and validates
+the output contract.
 """
 
 import json
@@ -26,7 +25,6 @@ def test_bench_script_emits_valid_json(tmp_path):
         BENCH_GENOME="20000",
         BENCH_GENOME_HC="40000",
         BENCH_ITERS="2",
-        BENCH_DEADLINE_S="240",
     )
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py")],
@@ -43,11 +41,12 @@ def test_bench_script_emits_valid_json(tmp_path):
     assert out["unit"] == "kmers/s"
     assert out["value"] > 0
     assert out["vs_baseline"] > 0
-    # every phase must have produced a measurement (the two-level phases
-    # fall back to consolidate2 on CPU but still run end-to-end)
+    assert out["platform"] == "cpu"
+    assert out["device_kind"]
+    assert out["device_count"] >= 1
+    # every phase must have produced a measurement
     assert "one-level:" in proc.stderr
-    assert "two-level-fused:" in proc.stderr
-    assert "two-level-bitonic:" in proc.stderr
+    assert "two-level:" in proc.stderr
     assert "two-level-hc:" in proc.stderr
     # the high-cardinality side metric is recorded on stderr only
     assert "kmers_per_sec_per_chip_k31_highcard" in proc.stderr

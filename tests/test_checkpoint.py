@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import checkpoint, golden, records
-from kmer_counter_tpu.config import Options
-from kmer_counter_tpu.metrics import Metrics, SizeMonitor
+from kmer_counter import checkpoint, golden, records
+from kmer_counter.config import Options
+from kmer_counter.metrics import Metrics, SizeMonitor
 
-from tests.test_engine import golden_dir_table, run_engine
-from tests.test_ingest import random_seqs, write_fastq
+from test_engine import golden_dir_table, run_engine
+from test_ingest import random_seqs, write_fastq
 
 
 def test_checkpoint_save_load_roundtrip(tmp_path, rng):
@@ -83,11 +83,11 @@ def test_engine_resume_from_checkpoint(tmp_path, rng):
         str(tmp_path / "ck"), opts,
         records.words_to_lanes(words_a), counts_a, reads_absorbed=10,
     )
-    from kmer_counter_tpu.engine import CountEngine
+    from kmer_counter.engine import CountEngine
 
     stats = CountEngine(opts).run()
     assert stats.reads == 22  # 10 resumed + 12 processed
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(str(tmp_path / "out.bin"), 15)
     want_words, want_counts = golden_dir_table(tmp_path, 15)
@@ -118,11 +118,11 @@ def test_engine_two_level_resume(tmp_path, rng):
         records.words_to_lanes(words_a), counts_a, reads_absorbed=10,
         files={"a.fastq": 10},
     )
-    from kmer_counter_tpu.engine import CountEngine
+    from kmer_counter.engine import CountEngine
 
     stats = CountEngine(opts).run()
     assert stats.reads == 22
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(str(tmp_path / "out.bin"), 15)
     want_words, want_counts = golden_dir_table(tmp_path, 15)
@@ -172,7 +172,7 @@ def test_engine_resume_detects_ingest_drift(tmp_path, rng, impl):
         records.words_to_lanes(words_a), counts_a, reads_absorbed=10,
         files={"a.fastq": 10},
     )
-    from kmer_counter_tpu.engine import CountEngine
+    from kmer_counter.engine import CountEngine
 
     with pytest.raises(RuntimeError, match="resume drift"):
         CountEngine(opts).run()
@@ -217,7 +217,7 @@ def test_engine_checkpoints_through_spill(tmp_path, rng, impl):
         table_slots=600,  # tiny: forces spill instead of growth
         verbose=0,
     )
-    from kmer_counter_tpu.engine import CountEngine
+    from kmer_counter.engine import CountEngine
 
     stats = CountEngine(opts).run()
     assert stats.spilled_runs > 0, "precondition: the run must spill"
@@ -225,7 +225,7 @@ def test_engine_checkpoints_through_spill(tmp_path, rng, impl):
     assert manifest.get("spill_runs"), "snapshot must list the spill runs"
     # run finished: its merge consumed the listed files -> snapshot stale
     assert checkpoint.load(str(ck), opts) is None
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(str(tmp_path / "out.bin"), 15)
     want_words, want_counts = golden_dir_table(tmp_path, 15)
@@ -238,7 +238,7 @@ def test_engine_resume_across_spill(tmp_path, rng, impl):
     """Crash-after-spill resume: the snapshot holds only the post-spill
     partial table plus the spill-run manifest; resume must re-register the
     runs with the scheduler and produce the full golden table."""
-    from kmer_counter_tpu.io import spill as spill_io
+    from kmer_counter.io import spill as spill_io
 
     (tmp_path / "in").mkdir()
     seqs_a = random_seqs(rng, 8, 40)   # spilled before the snapshot
@@ -274,11 +274,11 @@ def test_engine_resume_across_spill(tmp_path, rng, impl):
         files={"a.fastq": 14},
         spill_runs=[run],
     )
-    from kmer_counter_tpu.engine import CountEngine
+    from kmer_counter.engine import CountEngine
 
     stats = CountEngine(opts).run()
     assert stats.reads == 24
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(str(tmp_path / "out.bin"), 15)
     want_words, want_counts = golden_dir_table(tmp_path, 15)

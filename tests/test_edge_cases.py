@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.ops import count_chunk
+from kmer_counter import golden, records
+from kmer_counter.ops import count_chunk
 
-from tests.test_ops import table_to_counter
+from test_ops import table_to_counter
 
 
 def reads_from_strings(seqs):

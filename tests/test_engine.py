@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.config import Options
-from kmer_counter_tpu.engine import CountEngine, plan_chunks
-from kmer_counter_tpu.io.dump import load_table
+from kmer_counter import golden, records
+from kmer_counter.config import Options
+from kmer_counter.engine import CountEngine, plan_chunks
+from kmer_counter.io.dump import load_table
 
-from tests.test_ingest import random_seqs, write_fastq
+from test_ingest import random_seqs, write_fastq
 
 
 def run_engine(tmp_path, k, canonical=False, **kw):
@@ -94,9 +94,7 @@ def test_engine_tiny_table_forces_consolidations(tmp_path, rng):
 
 @pytest.mark.parametrize("k,canonical", [(15, False), (31, True)])
 def test_engine_two_level_matches_golden(tmp_path, rng, k, canonical):
-    # tableImpl=two drives the two-level loop (consolidate3 falls back to
-    # consolidate2 on the CPU backend; the loop/grow/finalize logic is the
-    # same either way).
+    # tableImpl=two drives the two-level loop (consolidate2 merges).
     (tmp_path / "in").mkdir()
     write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 37, 70))
     (words, counts), stats = run_engine(
@@ -182,7 +180,7 @@ def test_engine_profile_trace(tmp_path, rng, monkeypatch):
     (tmp_path / "in").mkdir()
     write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 6, 30))
     out = str(tmp_path / "out.bin")
-    from kmer_counter_tpu.engine import run_count
+    from kmer_counter.engine import run_count
 
     opts = Options(
         kmer_length=9,

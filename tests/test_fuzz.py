@@ -9,11 +9,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kmer_counter_tpu import golden
-from kmer_counter_tpu.ops import count_chunk
-from kmer_counter_tpu.utils.seqgen import random_genome, sample_reads
+from kmer_counter import golden
+from kmer_counter.ops import count_chunk
+from kmer_counter.utils.seqgen import random_genome, sample_reads
 
-from tests.test_ops import table_to_counter
+from test_ops import table_to_counter
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -36,9 +36,9 @@ def test_pipeline_matches_golden_fuzzed(seed):
 def test_sharded_matches_golden_fuzzed(seed):
     import jax
 
-    from kmer_counter_tpu.parallel.mesh import make_mesh
-    from kmer_counter_tpu.parallel.pipeline import ShardedCounter
-    from tests.test_parallel import table_as_counter
+    from kmer_counter.parallel.mesh import make_mesh
+    from kmer_counter.parallel.pipeline import ShardedCounter
+    from test_parallel import table_as_counter
 
     assert len(jax.devices()) >= 8
     mesh = make_mesh(8)
@@ -65,7 +65,7 @@ def test_parallel_ingest_matches_sequential_fuzzed(tmp_path, seed):
     """ParallelIngest must reproduce DirectoryInput's exact read sequence
     for random file layouts: varying file counts/sizes, thread counts,
     byte-segment sizes, chunk sizes, missing trailing newlines."""
-    from kmer_counter_tpu.io.fastq import DirectoryInput, ParallelIngest
+    from kmer_counter.io.fastq import DirectoryInput, ParallelIngest
 
     rng = np.random.default_rng(3000 + seed)
     n_files = int(rng.integers(1, 6))
@@ -135,8 +135,8 @@ def _corrupt(text: str, mode: str) -> str:
 )
 @pytest.mark.parametrize("parser", ["python", "native"])
 def test_malformed_fastq_fails_loudly(tmp_path, mode, parser):
-    from kmer_counter_tpu.io import native
-    from kmer_counter_tpu.io.fastq import FASTQReader
+    from kmer_counter.io import native
+    from kmer_counter.io.fastq import FASTQReader
 
     if parser == "native" and not native.available():
         pytest.skip("native library not built")
@@ -164,8 +164,8 @@ def test_malformed_fastq_fails_loudly(tmp_path, mode, parser):
 def test_wellformed_fastq_still_parses(tmp_path, parser):
     """The validation must not reject legal files: '@'/'+'-leading quality
     lines, missing trailing newline, CRLF endings."""
-    from kmer_counter_tpu.io import native
-    from kmer_counter_tpu.io.fastq import FASTQReader
+    from kmer_counter.io import native
+    from kmer_counter.io.fastq import FASTQReader
 
     if parser == "native" and not native.available():
         pytest.skip("native library not built")

@@ -1,8 +1,9 @@
 """Tests for the golden-model counter itself (the oracle must be right)."""
 
 import numpy as np
+import pytest
 
-from kmer_counter_tpu import golden, records
+from kmer_counter import golden, records
 
 
 def brute_force(reads, k, canonical=False):
@@ -82,3 +83,32 @@ def test_table_sorted_and_serializable(rng):
     np.testing.assert_array_equal(w2, words)
     np.testing.assert_array_equal(c2, counts)
     assert int(counts.sum()) == sum(counter.values())
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", [1, 15, 16, 31, 32, 33, 55, 64, 101, 128])
+def test_numpy_reference_matches_count_reads(k, canonical):
+    rng = np.random.default_rng(k)
+    L = k + 25
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (24, L))]
+    reads[rng.random(reads.shape) < 0.004] = ord("N")
+    reads[3, :] = ord("T")  # an all-T read: the max key, and A^k canonically
+    short = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (5, max(k - 1, 1)))]
+    blocks = [reads[:10], reads[10:], short] if k > 1 else [reads]
+    words, counts = golden.numpy_count_table(blocks, k, canonical)
+    want = golden.count_reads(list(reads) + list(short if k > 1 else []), k, canonical)
+    assert records.serialize_table(words, counts) == golden.serialize_counter(want)
+    assert words.shape[1] == records.words_per_kmer(k)
+
+
+def test_numpy_reference_dump_reads_fastq_dir(tmp_path):
+    from kmer_counter.utils.seqgen import make_fastq_dir
+
+    rng = np.random.default_rng(5)
+    make_fastq_dir(str(tmp_path), rng, 40, 60, 2, 500, invalid_frac=0.01)
+    seqs = []
+    for name in sorted(p.name for p in tmp_path.iterdir()):
+        seqs += (tmp_path / name).read_text().splitlines()[1::4]
+    assert golden.numpy_reference_dump(str(tmp_path), 21, True) == (
+        golden.serialize_counter(golden.count_reads(seqs, 21, True))
+    )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from kmer_counter_tpu.io.fastq import DirectoryInput, FASTQReader
+from kmer_counter.io.fastq import DirectoryInput, FASTQReader
 
 
 def write_fastq(path, seqs, qual_char="I", header_extra=""):
@@ -105,7 +105,7 @@ def test_directory_input_empty(tmp_path):
 
 def test_block_boundary_parsing(tmp_path, rng, monkeypatch):
     # Force tiny parse blocks so lines straddle block boundaries.
-    import kmer_counter_tpu.io.fastq as fastq_mod
+    import kmer_counter.io.fastq as fastq_mod
 
     monkeypatch.setattr(fastq_mod, "_BLOCK_BYTES", 7)
     seqs = random_seqs(rng, 10, 23)
@@ -163,7 +163,7 @@ def test_byte_range_sharding_partitions_exactly(tmp_path, rng):
 
 def test_byte_range_handles_at_sign_quality(tmp_path):
     # Quality lines starting with '@' must not break record resync.
-    from kmer_counter_tpu.io.fastq import FASTQReader
+    from kmer_counter.io.fastq import FASTQReader
 
     seqs = ["ACGTACGTAC", "TTTTACGTAA", "GGGGACGTCC", "AAAACCCGGT"]
     data = "".join(f"@r{i}\n{s}\n+\n@@@@@@@@@@\n" for i, s in enumerate(seqs))
@@ -205,7 +205,7 @@ def _rows(chunks):
 
 @pytest.mark.parametrize("threads", [2, 5])
 def test_parallel_ingest_matches_sequential(tmp_path, rng, threads):
-    from kmer_counter_tpu.io.fastq import ParallelIngest
+    from kmer_counter.io.fastq import ParallelIngest
 
     for i in range(5):
         write_fastq(tmp_path / f"f{i}.fastq", random_seqs(rng, 37 + i, 50))
@@ -224,7 +224,7 @@ def test_parallel_ingest_matches_sequential(tmp_path, rng, threads):
 def test_parallel_ingest_segments_one_big_file(tmp_path, rng):
     # segment_bytes smaller than the file: several units per file, whose
     # re-assembled rows must equal the sequential parse exactly.
-    from kmer_counter_tpu.io.fastq import ParallelIngest
+    from kmer_counter.io.fastq import ParallelIngest
 
     seqs = random_seqs(rng, 211, 44)
     write_fastq(tmp_path / "big.fastq", seqs)
@@ -237,7 +237,7 @@ def test_parallel_ingest_segments_one_big_file(tmp_path, rng):
 
 
 def test_parallel_ingest_mixed_line_lengths(tmp_path, rng):
-    from kmer_counter_tpu.io.fastq import ParallelIngest
+    from kmer_counter.io.fastq import ParallelIngest
 
     write_fastq(tmp_path / "a.fastq", random_seqs(rng, 20, 30))
     write_fastq(tmp_path / "b.fastq", random_seqs(rng, 20, 70))
@@ -252,7 +252,7 @@ def test_parallel_ingest_mixed_line_lengths(tmp_path, rng):
 
 
 def test_parallel_ingest_skips_bad_file(tmp_path, rng, capsys):
-    from kmer_counter_tpu.io.fastq import ParallelIngest
+    from kmer_counter.io.fastq import ParallelIngest
 
     write_fastq(tmp_path / "a.fastq", random_seqs(rng, 10, 40))
     (tmp_path / "b.fastq").write_text("this is not fastq\n")
@@ -266,7 +266,7 @@ def test_parallel_ingest_skips_bad_file(tmp_path, rng, capsys):
 
 def test_parallel_ingest_byte_shards_partition(tmp_path, rng):
     # multi-host byte-range sharding composed with in-host parallelism
-    from kmer_counter_tpu.io.fastq import ParallelIngest
+    from kmer_counter.io.fastq import ParallelIngest
 
     seqs = random_seqs(rng, 97, 40)
     write_fastq(tmp_path / "one.fastq", seqs)

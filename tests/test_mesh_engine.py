@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from kmer_counter_tpu.config import Options
-from kmer_counter_tpu.engine import MeshCountEngine
-from kmer_counter_tpu.io.dump import load_table
+from kmer_counter.config import Options
+from kmer_counter.engine import MeshCountEngine
+from kmer_counter.io.dump import load_table
 
-from tests.test_engine import golden_dir_table
-from tests.test_ingest import random_seqs, write_fastq
+from test_engine import golden_dir_table
+from test_ingest import random_seqs, write_fastq
 
 
 def run_mesh_engine(tmp_path, k, canonical=False, **kw):
@@ -50,7 +50,7 @@ def test_mesh_engine_multi_file_mixed_lengths(tmp_path, rng):
 
 
 def test_mesh_engine_two_level_matches_golden(tmp_path, rng):
-    """The two-level (keys-only raw + consolidate3) path on the mesh."""
+    """The two-level (keys-only raw + consolidate2) path on the mesh."""
     (tmp_path / "in").mkdir()
     write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 120, 60))
     (words, counts), stats = run_mesh_engine(
@@ -153,7 +153,7 @@ def _spy_resumed(monkeypatch):
     """Record whether (and at which epoch) mesh_load actually resumed —
     a scratch recount also byte-matches golden, so the tests must observe
     the resume itself."""
-    from kmer_counter_tpu import checkpoint as ckpt
+    from kmer_counter import checkpoint as ckpt
 
     seen = {"epoch": -1}
     orig = ckpt.mesh_load
@@ -171,7 +171,7 @@ def _spy_resumed(monkeypatch):
 
 def _crash_engine_after(monkeypatch, n_steps: int):
     """Make the counter's step raise after n_steps (simulated crash)."""
-    from kmer_counter_tpu.parallel import pipeline as pl
+    from kmer_counter.parallel import pipeline as pl
 
     for cls in (pl.ShardedCounter, pl.ShardedCounter2):
         orig = cls.step

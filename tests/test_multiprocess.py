@@ -17,8 +17,8 @@ import sys
 import numpy as np
 import pytest
 
-from tests.test_engine import golden_dir_table
-from tests.test_ingest import random_seqs, write_fastq
+from test_engine import golden_dir_table
+from test_ingest import random_seqs, write_fastq
 
 _WORKER = os.path.join(os.path.dirname(__file__), "multiproc_worker.py")
 
@@ -117,7 +117,7 @@ def test_two_process_mesh_matches_golden(tmp_path, impl):
         )
     k = 31
     merged, _logs = _run_workers(tmp_path, impl, k)
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(merged, k)
     want_words, want_counts = golden_dir_table(tmp_path, k, canonical=True)
@@ -138,7 +138,7 @@ def test_two_process_mesh_grow_under_pressure(tmp_path):
         )
     k = 31
     merged, _logs = _run_workers(tmp_path, "two", k, table_slots=4000)
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(merged, k)
     want_words, want_counts = golden_dir_table(tmp_path, k, canonical=True)
@@ -166,7 +166,7 @@ def test_two_process_mesh_spill_matches_golden(tmp_path):
     assert any("spilled=" in l and "spilled=0" not in l.split()[-1] for l in logs), (
         f"no spill happened; workers: {logs}"
     )
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(merged, k)
     want_words, want_counts = golden_dir_table(tmp_path, k, canonical=True)
@@ -203,7 +203,7 @@ def test_two_process_kill_resume_matches_golden(tmp_path, impl):
         ckpt_dir=ckpt, checkpoint_every=1,
     )
     assert all("resumed mesh checkpoint" in l for l in logs2), logs2
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(merged, k)
     want_words, want_counts = golden_dir_table(tmp_path, k, canonical=True)
@@ -254,7 +254,7 @@ def test_two_process_kill_resume_across_spill(tmp_path):
         ckpt_dir=ckpt, checkpoint_every=1,
     )
     assert all("resumed mesh checkpoint" in l for l in logs2), logs2
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(merged, k)
     want_words, want_counts = golden_dir_table(tmp_path, k, canonical=True)

@@ -6,13 +6,13 @@ Skipped when native/libkmer_io.so has not been built (make -C native).
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.io import native
-from kmer_counter_tpu.io.fastq import DirectoryInput, FASTQReader
-from kmer_counter_tpu.io.spill import merge_runs, write_run
+from kmer_counter import golden, records
+from kmer_counter.io import native
+from kmer_counter.io.fastq import DirectoryInput, FASTQReader
+from kmer_counter.io.spill import merge_runs, write_run
 
-from tests.test_ingest import random_seqs, write_fastq
-from tests.test_spill import make_run, read_all
+from test_ingest import random_seqs, write_fastq
+from test_spill import make_run, read_all
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"

@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.ops import (
+from kmer_counter import golden, records
+from kmer_counter.ops import (
     count_chunk,
     encode_reads,
     extract_kmer_lanes,
     sort_reduce,
 )
-from kmer_counter_tpu.ops import table as table_ops
+from kmer_counter.ops import table as table_ops
 
 
 def table_to_counter(lanes, counts, num_unique, k):

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.parallel.mesh import make_mesh
-from kmer_counter_tpu.parallel.pipeline import ShardedCounter
-from kmer_counter_tpu.parallel.shuffle import owner_of
+from kmer_counter import golden, records
+from kmer_counter.parallel.mesh import make_mesh
+from kmer_counter.parallel.pipeline import ShardedCounter
+from kmer_counter.parallel.shuffle import owner_of
 
 
 @pytest.fixture(scope="module")
@@ -84,8 +84,8 @@ def test_shuffle_overflow_detected(mesh8):
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from kmer_counter_tpu.parallel.mesh import DATA_AXIS
-    from kmer_counter_tpu.parallel.shuffle import route_merge_local
+    from kmer_counter.parallel.mesh import DATA_AXIS
+    from kmer_counter.parallel.shuffle import route_merge_local
 
     C, NL, cap = 64, 2, 8
     rng = np.random.default_rng(1)
@@ -114,8 +114,8 @@ def test_shuffle_balanced_no_overflow(mesh8):
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from kmer_counter_tpu.parallel.mesh import DATA_AXIS
-    from kmer_counter_tpu.parallel.shuffle import route_merge_local
+    from kmer_counter.parallel.mesh import DATA_AXIS
+    from kmer_counter.parallel.shuffle import route_merge_local
 
     C, NL, cap = 64, 2, 32
     rng = np.random.default_rng(2)
@@ -151,7 +151,7 @@ def test_shuffle_balanced_no_overflow(mesh8):
 
 
 def test_sharded_matches_single_device(mesh8, make_reads):
-    from kmer_counter_tpu.ops import count_chunk
+    from kmer_counter.ops import count_chunk
 
     k, L = 31, 60
     reads = make_reads(32, L, invalid_frac=0.02)
@@ -195,7 +195,7 @@ def test_sampled_splitters_balance_skewed_keys(mesh8, make_reads):
     no overflow retries on exactly this regime."""
     import jax.numpy as jnp
 
-    from kmer_counter_tpu.parallel.shuffle import owner_of
+    from kmer_counter.parallel.shuffle import owner_of
 
     k, L = 31, 60
     counter = ShardedCounter(
@@ -222,39 +222,3 @@ def test_sampled_splitters_balance_skewed_keys(mesh8, make_reads):
     uniform_owner = np.asarray(owner_of(jnp.asarray(flat_lane0[live]), 8))
     uniform_loads = np.bincount(uniform_owner, minlength=8)
     assert uniform_loads.max() > 1.5 * uniform_loads.mean()
-
-
-def test_pallas_kernel_inside_shard_map(mesh8):
-    """Regression (JAX 0.9 check_vma): Pallas kernels must trace inside
-    shard_map — the real-TPU mesh path runs consolidate3's kernels there.
-    The pipeline shard_maps pass check_vma=False (JAX's documented
-    workaround: vma does not propagate through Pallas internals) and the
-    pallas out_shapes inherit the caller's vma (pallas_sort._sds)."""
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from kmer_counter_tpu.ops import pallas_sort
-
-    n = 8 * 256
-    rng = np.random.default_rng(3)
-    keys = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
-    cnts = np.ones(n, np.uint32)
-
-    def body(k, c):
-        out = pallas_sort.leaf_sort([k, c], num_keys=1, tile=256, interpret=True)
-        return out[0], out[1]
-
-    fn = jax.jit(
-        shard_map(
-            body,
-            mesh=mesh8,
-            check_vma=False,
-            in_specs=(P("data"), P("data")),
-            out_specs=(P("data"), P("data")),
-        )
-    )
-    ok, _ = fn(jnp.asarray(keys), jnp.asarray(cnts))
-    ok = np.asarray(ok).reshape(8, 256)
-    for r in ok:
-        assert (np.diff(r.astype(np.int64)) >= 0).all()

@@ -1,4 +1,4 @@
-"""Unit tests for the k-mer record ABI (kmer_counter_tpu.records).
+"""Unit tests for the k-mer record ABI (kmer_counter.records).
 
 Hand vectors pin the exact reference byte format (SURVEY.md §2.2): MSB-first
 2-bit packing into uint64 words, little-endian storage, uint32 count.
@@ -7,7 +7,7 @@ Hand vectors pin the exact reference byte format (SURVEY.md §2.2): MSB-first
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import records
+from kmer_counter import records
 
 
 def test_sizes():

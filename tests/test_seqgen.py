@@ -4,8 +4,8 @@ import os
 
 import numpy as np
 
-from kmer_counter_tpu.io.fastq import DirectoryInput
-from kmer_counter_tpu.utils.seqgen import (
+from kmer_counter.io.fastq import DirectoryInput
+from kmer_counter.utils.seqgen import (
     make_fastq_dir,
     random_genome,
     sample_reads,

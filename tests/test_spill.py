@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.io.spill import MergeScheduler, RunReader, merge_runs, write_run
+from kmer_counter import golden, records
+from kmer_counter.io.spill import MergeScheduler, RunReader, merge_runs, write_run
 
 
 def make_run(tmp_path, name, counter, k):
@@ -16,7 +16,7 @@ def make_run(tmp_path, name, counter, k):
 
 
 def read_all(path, k):
-    from kmer_counter_tpu.io.dump import load_table
+    from kmer_counter.io.dump import load_table
 
     words, counts = load_table(path, k)
     return {tuple(w): int(c) for w, c in zip(words.tolist(), counts.tolist())}
@@ -60,7 +60,7 @@ def test_merge_runs_sums_counts(tmp_path, rng):
     assert n == len(want)
     # output is sorted
     words, _ = __import__(
-        "kmer_counter_tpu.io.dump", fromlist=["load_table"]
+        "kmer_counter.io.dump", fromlist=["load_table"]
     ).load_table(out, k)
     keys = list(map(tuple, words.tolist()))
     assert keys == sorted(keys)
@@ -89,10 +89,10 @@ def test_merge_scheduler_hierarchical(tmp_path, rng):
 
 
 def test_engine_spill_path(tmp_path, rng):
-    from tests.test_engine import golden_dir_table, run_engine
+    from test_engine import golden_dir_table, run_engine
 
     (tmp_path / "in").mkdir()
-    from tests.test_ingest import random_seqs, write_fastq
+    from test_ingest import random_seqs, write_fastq
 
     write_fastq(tmp_path / "in" / "a.fastq", random_seqs(rng, 80, 40))
     (words, counts), stats = run_engine(
@@ -111,7 +111,7 @@ def test_engine_spill_path(tmp_path, rng):
 def test_merge_scheduler_surfaces_failures(tmp_path, rng, monkeypatch):
     # A failing background merge must re-queue its batch and raise at
     # finish() — never silently drop records from the output.
-    import kmer_counter_tpu.io.spill as spill_mod
+    import kmer_counter.io.spill as spill_mod
 
     k = 9
     sched = MergeScheduler(str(tmp_path / "tmp"), k, fan_in=2, threads=1)

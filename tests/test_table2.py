@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kmer_counter_tpu import golden, records
-from kmer_counter_tpu.ops import table2 as t2
-from kmer_counter_tpu.ops.pipeline import extract_chunk_keys
+from kmer_counter import golden, records
+from kmer_counter.ops import table2 as t2
+from kmer_counter.ops.pipeline import extract_chunk_keys
 
 from conftest import random_reads
 
@@ -95,56 +95,71 @@ def test_two_level_grow(rng):
     assert table_counter(table, k) == want
 
 
-VARIANTS = {
-    "plain": dict(fold_fused=False, bitonic=False),
-    "fused": dict(fold_fused=True, bitonic=False),
-    "bitonic": dict(bitonic=True),
-    "fused_compact": dict(bitonic=True, fused_compact=True),
-}
+WIDE_KS = [15, 31, 55, 101, 128]
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_consolidate3_matches_golden(rng, variant):
-    # The Pallas-merge consolidation path (interpret mode: one 64K tile).
-    # Several rounds so the prefix re-merges with later raw regions.
-    kw = VARIANTS[variant]
-    k = 15
+def _reads_for(rng, k, n, invalid_frac=0.005):
+    return random_reads(rng, n, k + 20, invalid_frac=invalid_frac)
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_consolidate2_matches_golden(rng, k):
+    # Several rounds so the prefix re-merges with later raw regions; the
+    # prefix stays sorted with live rows dense at the front.
     canonical = True
     NL = records.active_lanes(k)
-    CP, CR = 16384, 49152  # CP+CR == pallas_sort.TILE
-    table = t2.make_table2(CP, CR, NL)
-    chunks = [random_reads(rng, 16, 40, invalid_frac=0.05) for _ in range(4)]
+    chunks = [_reads_for(rng, k, 10) for _ in range(4)]
+    width = 10 * 21
+    table = t2.make_table2(4 * width, 2 * width, NL)
     for i, reads in enumerate(chunks):
         lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, canonical)
         if not t2.raw_append_fits(table, lanes.shape[1]) or i == 2:
-            table, live, lost = t2.consolidate3(table, _interpret=True, **kw)
+            table, live, lost = t2.consolidate2(table)
             assert int(lost) == 0
         table = t2.append_raw(table, lanes, allt)
-    table, live, lost = t2.consolidate3(table, _interpret=True, **kw)
+    table, live, lost = t2.consolidate2(table)
     assert int(lost) == 0
-    # prefix is unique + compact: live rows all count>0, sorted strictly
     counts = np.asarray(table.prefix_counts)
     nl = int(live)
     assert np.all(counts[:nl] > 0) and np.all(counts[nl:] == 0)
     lanes_np = np.asarray(table.prefix_lanes)[:, :nl]
     keys = [tuple(lanes_np[:, i]) for i in range(nl)]
-    assert keys == sorted(set(keys)), "prefix not strictly sorted unique"
-    got = table_counter(table, k)
+    assert keys == sorted(keys), "prefix not sorted"
     want = dict(golden.count_reads(np.vstack(chunks), k, canonical))
-    assert got == want
+    assert table_counter(table, k) == want
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_consolidate3_lost_detection(rng, variant):
-    k = 15
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_consolidate2_lost_detection(rng, k):
     NL = records.active_lanes(k)
-    CP, CR = 128, 65536 - 128
-    table = t2.make_table2(CP, CR, NL)
-    reads = random_reads(rng, 16, 40)
+    reads = _reads_for(rng, k, 16, invalid_frac=0.0)
     lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, False)
+    table = t2.append_raw(t2.make_table2(32, lanes.shape[1], NL), lanes, allt)
+    _, live, lost = t2.consolidate2(table)
+    assert int(live) == 32
+    assert int(lost) > 0  # far more distinct keys than the 32-slot prefix
+
+
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_consolidate2_carries_pair_rows(rng, k):
+    # Two rounds of the SAME reads leave pair rows (carried count + fresh
+    # count per key) in the prefix; a third round must fold them together
+    # with the new raw region.
+    NL = records.active_lanes(k)
+    reads = _reads_for(rng, k, 8, invalid_frac=0.0)
+    lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, False)
+    table = t2.make_table2(4 * lanes.shape[1], lanes.shape[1], NL)
+    for _ in range(2):
+        table = t2.append_raw(table, lanes, allt)
+        table, live, lost = t2.consolidate2(table)
+        assert int(lost) == 0
+    pc = np.asarray(table.prefix_counts)
+    pl = np.asarray(table.prefix_lanes)[:, pc > 0]
+    keys = [tuple(pl[:, i]) for i in range(pl.shape[1])]
+    assert len(keys) != len(set(keys)), "precondition: prefix has pair rows"
     table = t2.append_raw(table, lanes, allt)
-    _, live, lost = t2.consolidate3(table, _interpret=True, **VARIANTS[variant])
-    assert int(lost) > 0  # far more distinct keys than the 128-slot prefix
+    want = {key: 3 * c for key, c in golden.count_reads(reads, k, False).items()}
+    assert table_counter(table, k) == want
 
 
 def test_finalize_host_merges_and_raises_on_lost(rng):
@@ -192,128 +207,3 @@ def test_extract_chunk_keys_sentinels(rng):
         c for c in golden.count_reads(reads, 7, False).values()
     )
     assert (~sent).sum() == n_valid
-
-
-def test_consolidate3_fold_fused_matches_golden(rng):
-    # The in-kernel count-fold variant (merge_sorted_runs_fold): same
-    # contract and result as consolidate3, two fewer whole-table passes.
-    k = 15
-    canonical = True
-    NL = records.active_lanes(k)
-    CP, CR = 16384, 49152  # CP+CR == pallas_sort.TILE
-    table = t2.make_table2(CP, CR, NL)
-    chunks = [random_reads(rng, 16, 40, invalid_frac=0.05) for _ in range(4)]
-    for i, reads in enumerate(chunks):
-        lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, canonical)
-        if not t2.raw_append_fits(table, lanes.shape[1]) or i == 2:
-            table, live, lost = t2.consolidate3(
-                table, _interpret=True, fold_fused=True, bitonic=False
-            )
-            assert int(lost) == 0
-        table = t2.append_raw(table, lanes, allt)
-    table, live, lost = t2.consolidate3(
-        table, _interpret=True, fold_fused=True, bitonic=False
-    )
-    assert int(lost) == 0
-    counts = np.asarray(table.prefix_counts)
-    nl = int(live)
-    assert np.all(counts[:nl] > 0) and np.all(counts[nl:] == 0)
-    lanes_np = np.asarray(table.prefix_lanes)[:, :nl]
-    keys = [tuple(lanes_np[:, i]) for i in range(nl)]
-    assert keys == sorted(set(keys)), "prefix not strictly sorted unique"
-    got = table_counter(table, k)
-    want = dict(golden.count_reads(np.vstack(chunks), k, canonical))
-    assert got == want
-
-
-def test_consolidate3_fold_fused_lost_detection(rng):
-    k = 15
-    NL = records.active_lanes(k)
-    CP, CR = 128, 65536 - 128
-    table = t2.make_table2(CP, CR, NL)
-    reads = random_reads(rng, 16, 40)
-    lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, False)
-    table = t2.append_raw(table, lanes, allt)
-    _, live, lost = t2.consolidate3(
-        table, _interpret=True, fold_fused=True, bitonic=False
-    )
-    assert int(lost) > 0
-
-
-@pytest.mark.parametrize("variant", ["fused", "bitonic", "fused_compact"])
-def test_consolidate3_fold_fused_wide_records(rng, variant):
-    # k=55: 4 key lanes + counts = 5 operands.  The odd-even variant runs
-    # at the halved tile (_kernel_tile; full-tile 5-op odd-even merge
-    # OOMs scoped VMEM on the chip); the bitonic variants keep the full
-    # 64K tile (5 operands is _bitonic_tile's full-tile limit, and the
-    # fused-compact gate's).  CP+CR stays a multiple of both tiles.
-    kw = VARIANTS[variant]
-    k = 55
-    NL = records.active_lanes(k)
-    assert NL == 4
-    CP, CR = 16384, 49152
-    table = t2.make_table2(CP, CR, NL)
-    chunks = [random_reads(rng, 12, 70, invalid_frac=0.03) for _ in range(3)]
-    for i, reads in enumerate(chunks):
-        lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, True)
-        if not t2.raw_append_fits(table, lanes.shape[1]) or i == 1:
-            table, live, lost = t2.consolidate3(table, _interpret=True, **kw)
-            assert int(lost) == 0
-        table = t2.append_raw(table, lanes, allt)
-    got = table_counter(table, k)
-    want = dict(golden.count_reads(np.vstack(chunks), k, True))
-    assert got == want
-
-
-@pytest.mark.parametrize("variant", ["fused", "bitonic"])
-def test_consolidate3_fold_fused_accepts_pair_row_prefix(rng, variant):
-    # consolidate2 leaves <=2 live rows per key in the prefix; a later
-    # fused consolidation must fold those pairs together with the fresh
-    # raw region (the "fold handles any run length" contract).
-    kw = VARIANTS[variant]
-    k = 15
-    NL = records.active_lanes(k)
-    CP, CR = 16384, 49152
-    table = t2.make_table2(CP, CR, NL)
-    reads = random_reads(rng, 16, 40)
-    # two consolidate2 rounds of the SAME reads -> pair rows in the prefix
-    for _ in range(2):
-        lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, False)
-        table = t2.append_raw(table, lanes, allt)
-        table, live, lost = t2.consolidate2(table)
-        assert int(lost) == 0
-    pc = np.asarray(table.prefix_counts)
-    pl = np.asarray(table.prefix_lanes)[:, pc > 0]
-    keys = [tuple(pl[:, i]) for i in range(pl.shape[1])]
-    assert len(keys) != len(set(keys)), "precondition: prefix has pair rows"
-    # third round through the FUSED path
-    lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, False)
-    table = t2.append_raw(table, lanes, allt)
-    table, live, lost = t2.consolidate3(table, _interpret=True, **kw)
-    assert int(lost) == 0
-    got = table_counter(table, k)
-    want = {key: 3 * c for key, c in golden.count_reads(reads, k, False).items()}
-    assert got == want
-
-
-def test_consolidate3_bitonic_widest_records(rng):
-    # k=101: 7 key lanes + counts = 8 operands — the widest-record
-    # regime.  On the chip the 8-operand bitonic merge OOMs scoped VMEM
-    # at the full 64K tile (18.76M vs the 16M limit, measured round 4);
-    # _bitonic_tile halves the window beyond five operands.  Interpret
-    # mode exercises the halved-tile path end-to-end against golden.
-    k = 101
-    NL = records.active_lanes(k)
-    assert NL == 7
-    CP, CR = 16384, 49152
-    table = t2.make_table2(CP, CR, NL)
-    chunks = [random_reads(rng, 8, 120, invalid_frac=0.03) for _ in range(3)]
-    for i, reads in enumerate(chunks):
-        lanes, allt = extract_chunk_keys(jnp.asarray(reads), k, True)
-        if not t2.raw_append_fits(table, lanes.shape[1]) or i == 1:
-            table, live, lost = t2.consolidate3(table, _interpret=True, bitonic=True)
-            assert int(lost) == 0
-        table = t2.append_raw(table, lanes, allt)
-    got = table_counter(table, k)
-    want = dict(golden.count_reads(np.vstack(chunks), k, True))
-    assert got == want
